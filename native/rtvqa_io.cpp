@@ -1,4 +1,4 @@
-// rtvqa_io — native host I/O runtime for the TPU video-analysis framework.
+// rtvqa_io — native host I/O runtime for the video-analysis framework.
 //
 // Replaces every external process/bindings dependency of the reference:
 //   * cv2.VideoCapture decode loops (reference complexity_metrics.py:51,89,520
@@ -12,7 +12,7 @@
 //
 // Exposed as a C ABI consumed from Python via ctypes (rtvqa_tpu/io/video.py).
 // Frames are returned as planar YUV (native codec layout; no host-side color
-// conversion — RGB/gray conversion happens on the TPU) or as interleaved RGB24
+// conversion — RGB/gray conversion happens on the device) or as interleaved RGB24
 // via libswscale when byte-parity with cv2's BGR decode path is wanted.
 
 #include <cstdint>

@@ -19,6 +19,10 @@ import dataclasses
 import json
 from typing import Any, Optional
 
+from rtvqa_tpu.obs.logging import get_logger
+
+logger = get_logger("rtvqa_tpu.config")
+
 
 class ConfigError(ValueError):
     """Raised when a config file fails validation."""
@@ -63,9 +67,9 @@ class Config:
     # Streaming (bounded-memory) complexity analysis: True/False, or None =
     # auto (streams when the analyzed file exceeds ~256 MB).
     streaming_complexity: Optional[bool] = None
-    # VIF/VMAF filter-matmul precision: "auto" (default; FAST3 3-pass bf16 on
-    # TPU — end-to-end feature error ~5e-4, see docs/PARITY.md — exact f32 on
-    # CPU), "exact", or "fast". PSNR/SSIM are exact in every mode.
+    # Accepted so existing configs keep loading: every metric is computed in
+    # exact f32 whatever the value ("fast" logs a warning that it has no
+    # effect). docs/PARITY.md "Filter-matmul precision".
     quality_precision: Optional[str] = None
     # Motion-complexity block-matching search: "pyramid" (default — half-res
     # coarse search, the reference Farneback's own pyramid analog, ~14x less
@@ -124,6 +128,11 @@ class Config:
             raise ConfigError(
                 "quality_precision must be 'auto', 'exact', 'fast' or null, "
                 f"got {self.quality_precision!r}."
+            )
+        if self.quality_precision == "fast":
+            logger.warning(
+                "quality_precision 'fast' has no effect: every metric is "
+                "computed in exact f32."
             )
         if self.preset not in _X264_PRESETS:
             # Catch preset typos here rather than as an opaque x264 error

@@ -5,12 +5,14 @@ replacing the reference's three separate ``cv2.VideoCapture`` passes
 (``complexity_metrics.py:76-111``, ``:506-541``, ``:38-73``; SURVEY.md §2.4(3))
 and its ``ffprobe``/``ffmpeg`` subprocesses (``video_processing.py:101-142``,
 ``:200-214``). Color-space conversion is deliberately NOT done here — frames
-ship to the device as planar YUV (1.5 bytes/px, half the PCIe/ICI bytes of
-RGB) and the RGB/gray conversions run on-TPU (`rtvqa_tpu.ops.color`).
+ship to the device as planar YUV (1.5 bytes/px, half the host-to-device
+bytes of RGB) and the RGB/gray conversions run on the device (`rtvqa_tpu.ops.color`).
 
-If the shared library is missing, importing this module still succeeds;
-calling any IO function raises ``NativeIOUnavailable`` (so pure-compute tests
-never need the toolchain).
+The shared library is built from ``native/rtvqa_io.cpp`` at first use (or
+by ``make -C native``); nothing prebuilt is shipped. Importing this module
+always succeeds; calling an IO function where the library cannot be built
+raises ``NativeIOUnavailable`` with the compiler's message (so pure-compute
+tests never need the toolchain).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import ctypes
 import dataclasses
 import os
 import subprocess
+import tempfile
 from fractions import Fraction
 from typing import Optional
 
@@ -32,24 +35,49 @@ class NativeIOUnavailable(RuntimeError):
     pass
 
 
+class ClipError(RuntimeError):
+    """A clip that cannot be opened, probed, decoded or encoded."""
+
+
+# What the pipelines treat as a bad clip: an empty quality cell, or one
+# failed sweep item. Every other error (a device program that fails to lower,
+# compile or run, a missing native library) propagates.
+BAD_CLIP_ERRORS = (ClipError, FileNotFoundError)
+
+
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _build_lib() -> None:
-    """Best-effort in-tree build of the native library (g++ + ffmpeg dev libs)."""
+    """Build the native library in-tree (g++ + the FFmpeg development libs).
+
+    The compiler writes a temporary file that is renamed into place, so
+    processes that build at the same time (parallel test workers) never see
+    a half-written library. A failed build raises ``NativeIOUnavailable``
+    carrying the compiler's stderr.
+    """
     src = os.path.join(os.path.dirname(__file__), "..", "..", "native", "rtvqa_io.cpp")
     src = os.path.abspath(src)
     if not os.path.isfile(src):
-        return
+        raise NativeIOUnavailable(f"native IO source not found at {src}")
     os.makedirs(_LIB_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_LIB_DIR)
+    os.close(fd)
     cmd = [
-        "g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-o", _LIB_PATH, src,
+        "g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-o", tmp, src,
         "-lavformat", "-lavcodec", "-lavutil", "-lswscale",
     ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-    except Exception:
-        pass
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        os.unlink(tmp)
+        raise NativeIOUnavailable(f"native IO build failed: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise NativeIOUnavailable(
+            f"native IO build failed ({' '.join(cmd)}):\n{proc.stderr}"
+        )
+    os.replace(tmp, _LIB_PATH)
 
 
 def _load() -> ctypes.CDLL:
@@ -58,10 +86,6 @@ def _load() -> ctypes.CDLL:
         return _lib
     if not os.path.isfile(_LIB_PATH):
         _build_lib()
-    if not os.path.isfile(_LIB_PATH):
-        raise NativeIOUnavailable(
-            f"native IO library not found at {_LIB_PATH}; build with `make -C native`"
-        )
     lib = ctypes.CDLL(_LIB_PATH)
     lib.rtvqa_last_error.restype = ctypes.c_char_p
     lib.rtvqa_decode_open.restype = ctypes.c_void_p
@@ -151,7 +175,7 @@ def decode_sampled(
         path.encode(), int(frame_interval), int(threads or 0)
     )
     if not handle:
-        raise RuntimeError(f"decode failed: {_err(lib)}")
+        raise ClipError(f"decode failed: {_err(lib)}")
     try:
         info = (ctypes.c_int64 * 8)()
         lib.rtvqa_decode_info(handle, info)
@@ -192,7 +216,7 @@ def get_video_info(path: str) -> VideoInfo:
     lib = _load()
     info = (ctypes.c_int64 * 6)()
     if lib.rtvqa_probe(path.encode(), info) < 0:
-        raise RuntimeError(f"probe failed: {_err(lib)}")
+        raise ClipError(f"probe failed: {_err(lib)}")
     w, h, bitrate_bps, fps_num, fps_den, _ = (int(x) for x in info)
     fps = float(Fraction(fps_num, fps_den)) if fps_den > 0 and fps_num >= 0 else 0.0
     return VideoInfo(
@@ -210,7 +234,7 @@ def transcode(in_path: str, out_path: str, crf: int = 23, preset: str = "medium"
     lib = _load()
     rc = lib.rtvqa_transcode(in_path.encode(), out_path.encode(), int(crf), preset.encode())
     if rc < 0:
-        raise RuntimeError(f"transcode failed: {_err(lib)}")
+        raise ClipError(f"transcode failed: {_err(lib)}")
 
 
 def encode_raw_yuv420(
@@ -236,7 +260,7 @@ def encode_raw_yuv420(
         n, w, h, fps.numerator, fps.denominator, int(crf), preset.encode(),
     )
     if rc < 0:
-        raise RuntimeError(f"encode failed: {_err(lib)}")
+        raise ClipError(f"encode failed: {_err(lib)}")
 
 
 def encode_raw_rgb(

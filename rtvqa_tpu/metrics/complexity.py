@@ -3,8 +3,8 @@
 Reference: ``calculate_average_scene_complexity`` (``complexity_metrics.py:
 246-310``) — seven ProcessPoolExecutor passes over host frame lists plus two
 extra full decodes. Here the whole suite is ONE jit-compiled function over
-YUV frame batches resident in HBM: gray/RGB conversion, resizes (MXU
-matmuls), all metric kernels, EWM smoothing (associative scan) and means fuse
+YUV frame batches resident in device memory: gray/RGB conversion, resizes
+(small matmuls), all metric kernels, EWM smoothing (associative scan) and means fuse
 into a single XLA program; the clip is decoded exactly once (SURVEY.md
 §2.4(3) fixed).
 
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -88,8 +87,7 @@ def _smoothed_masked_mean(series: jnp.ndarray, valid: jnp.ndarray, alpha: float)
     jax.jit,
     static_argnames=(
         "resize_h", "resize_w", "alpha", "block", "radius", "edge_low",
-        "edge_high", "motion_impl", "motion_search", "motion_kb",
-        "gray_strip",
+        "edge_high", "motion_search",
     ),
 )
 def complexity_suite(
@@ -106,35 +104,19 @@ def complexity_suite(
     radius: int = 8,
     edge_low: float = 100.0,
     edge_high: float = 200.0,
-    motion_impl: str = "xla",
     motion_search: str = "pyramid",
-    motion_kb: int | None = None,
-    gray_strip: int | None = None,
 ) -> dict[str, jnp.ndarray]:
     """Full complexity suite on padded sampled-frame batches; returns the 8
     smoothed-mean scalars keyed by metric name.
 
-    ``motion_impl``: "xla" (scan-based, any backend) or "pallas" (VMEM-staged
-    search kernel — TPU only; ~300x less HBM traffic at full resolution).
     ``motion_search``: "pyramid" (default — half-res coarse search, the
-    reference Farneback's own pyramid analog, ~14x less VPU work) or "full"
-    (exhaustive full-resolution search); see ops.motion.
-    ``motion_kb``/``gray_strip``: Pallas grid strip-height overrides
-    (block-rows per search cell / luma rows per gray cell) — tuning knobs
-    for the round-5 fewer-grid-cells sweeps; None = measured defaults.
+    reference Farneback's own pyramid analog, ~14x less arithmetic) or
+    "full" (exhaustive full-resolution search); see ops.motion.
     """
     n_pad = y.shape[0]
     idx = jnp.arange(n_pad)
 
-    if motion_impl == "pallas":
-        # TPU path: strip-streamed uint8 kernel (kernels.gray_pallas) — the
-        # XLA form materializes the chroma-upsample relayout + RGB clip
-        # planes, ~36 ms real per 128x1080p batch (round-3g profile).
-        from rtvqa_tpu.kernels.gray_pallas import yuv420_to_gray_pallas
-
-        gray_full = yuv420_to_gray_pallas(y, u, v, strip=gray_strip)
-    else:
-        gray_full = yuv420_to_gray(y, u, v)                  # (N, H, W) f32
+    gray_full = yuv420_to_gray(y, u, v)                      # (N, H, W) f32
 
     curr_g = gray_full[1:]
     prev_g = gray_full[:-1]
@@ -144,23 +126,12 @@ def complexity_suite(
     #    Farneback unresized, complexity_metrics.py:313-343).
     if motion_search == "pyramid":
         motion_series = block_match_motion_pyramid_series(
-            gray_full, block=block, radius=radius, impl=motion_impl,
-            kb=motion_kb,
-        )
-    elif motion_impl == "pallas":
-        from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
-
-        motion_series = block_match_motion_pallas(
-            prev_g, curr_g, block=block, radius=radius, kb=motion_kb
+            gray_full, block=block, radius=radius
         )
     else:
         motion_series = block_match_motion(prev_g, curr_g, block=block, radius=radius)
 
-    # -- spatial metrics on first-of-pair frames s[1:]. Dense matmul resize:
-    #    for an f32 operand already in HBM the MXU read beats the sampled
-    #    row-gather form (probed 2.3 vs 8.3 ms real at 128x1080p, round 3g —
-    #    XLA gathers are slow; the sampled form only wins when it removes
-    #    CONVERSION work, as in the color path below).
+    # -- spatial metrics on first-of-pair frames s[1:] (dense matmul resize).
     gray_rs = resize_bilinear(curr_g, resize_h, resize_w)
     dct_series = dct_energy(gray_rs)
     hist_series = gray_entropy(gray_rs)
@@ -170,8 +141,7 @@ def complexity_suite(
     orb_series = orb_keypoint_count(gray_orb)
 
     # Color path: sampled-rows convert + resize + entropy (bitwise-equal to
-    # full-res convert + resize; see ops.histogram.color_entropy_sampled —
-    # round 3g, ~40 ms of HBM traffic removed at 128x1080p).
+    # full-res convert + resize; see ops.histogram.color_entropy_sampled).
     color_series = color_entropy_sampled(
         y[1:], u[1:], v[1:], resize_h, resize_w
     )
@@ -206,25 +176,21 @@ METRIC_ORDER = (
     jax.jit,
     static_argnames=(
         "resize_h", "resize_w", "alpha", "block", "radius", "edge_low",
-        "edge_high", "motion_impl", "motion_search", "motion_kb",
-        "gray_strip",
+        "edge_high", "motion_search",
     ),
 )
 def complexity_suite_packed(
     y, u, v, timestamps_ms, n_valid, *,
     resize_h, resize_w, alpha=0.8, block=16, radius=8,
-    edge_low=100.0, edge_high=200.0, motion_impl="xla",
-    motion_search="pyramid", motion_kb=None, gray_strip=None,
+    edge_low=100.0, edge_high=200.0, motion_search="pyramid",
 ) -> jnp.ndarray:
-    """complexity_suite with the 8 scalars packed into one (8,) array —
-    a single device->host fetch (each fetched array costs a full RPC round
-    trip on remote-execution tunnels)."""
+    """complexity_suite with the 8 scalars packed into one (8,) array — a
+    single device->host fetch."""
     out = complexity_suite(
         y, u, v, timestamps_ms, n_valid,
         resize_h=resize_h, resize_w=resize_w, alpha=alpha, block=block,
         radius=radius, edge_low=edge_low, edge_high=edge_high,
-        motion_impl=motion_impl, motion_search=motion_search,
-        motion_kb=motion_kb, gray_strip=gray_strip,
+        motion_search=motion_search,
     )
     return jnp.stack([out[k] for k in METRIC_ORDER])
 
@@ -241,16 +207,11 @@ def calculate_average_scene_complexity(
     smoothing_factor: float = 0.8,
     block: int = 16,
     radius: int = 8,
-    motion_impl: str | None = None,
     motion_search: str = "pyramid",
 ) -> ComplexityResult:
     """Host-side wrapper: pad a DecodedClip to a static bucket, run the jitted
     suite, return the reference-ordered result (public API analog of
     ``complexity_metrics.py:246-310``)."""
-    import jax
-
-    if motion_impl is None:
-        motion_impl = "pallas" if jax.default_backend() not in ("cpu",) else "xla"
     n = int(clip.y.shape[0])
     n_pad = _pad_bucket(n)
 
@@ -268,7 +229,6 @@ def calculate_average_scene_complexity(
             alpha=float(smoothing_factor),
             block=block,
             radius=radius,
-            motion_impl=motion_impl,
             motion_search=motion_search,
         )
     )

@@ -1,26 +1,37 @@
 """Persistent XLA compilation cache.
 
-First compilation of the fused metric programs is expensive (tens of seconds
-on-chip; minutes through a remote-compile tunnel). Enabling JAX's persistent
-cache makes every subsequent process reuse compiled executables — essential
-for the CLI's one-process-per-clip usage pattern (the reference pays its
-startup cost in process-pool spawning instead; ours is a one-time compile).
+Compiling the chunk programs at full resolution takes tens of seconds; with
+JAX's persistent cache every later process reuses the compiled executables —
+the CLI runs one process per clip.
+
+Placement: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX reads it itself;
+nothing is set in code), otherwise a fixed directory inside the checkout,
+``<repo>/.jax_cache``. A fixed path matters: the path is part of what the
+cache keys on, so a directory that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def enable_persistent_cache(path: str | None = None) -> None:
+
+def cache_dir() -> str:
+    """The directory the persistent compilation cache lives in."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
+
+
+def enable_persistent_cache() -> str:
+    """Turn on the persistent compilation cache; returns its directory."""
     import jax
 
-    cache_dir = path or os.environ.get(
-        "RTVQA_JAX_CACHE", os.path.expanduser("~/.cache/rtvqa_jax")
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # older jax versions: fall through silently
+    path = cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return path

@@ -2,9 +2,9 @@
 
 The reference decodes to interleaved BGR on the host via OpenCV and converts
 to gray per frame with ``cv2.cvtColor`` (``complexity_metrics.py:332-333``
-etc.). Here frames ship to the device as planar YUV420 (half the host→HBM
-bytes of RGB) and conversion happens on-TPU, fused by XLA into downstream
-kernels.
+etc.). Here frames ship to the device as planar YUV420 (half the host→device
+bytes of RGB) and conversion happens on the device, fused by XLA into
+downstream kernels.
 
 Conventions: BT.601 limited-range ("studio swing") YUV, the default
 interpretation for untagged H.264 — matching what swscale/OpenCV assume when
@@ -68,11 +68,9 @@ def yuv420_to_rgb_planes(
     """Planar YUV420 (limited range) -> three (..., H, W) float32 channel
     planes (r, g, b) in [0,255].
 
-    The planar form is the TPU-native one: every step is elementwise over
-    (..., H, W) arrays that XLA fuses into the consumer. The interleaved
-    ``(..., H, W, 3)`` form puts 3 on the lane (minor) dimension — measured
-    45 ms (gray) + 38 ms (color path) of device time per 128x1080p batch in
-    round 3c, the single largest non-motion cost in the complexity suite.
+    Every step is elementwise over (..., H, W) arrays that XLA fuses into
+    the consumer; the interleaved ``(..., H, W, 3)`` form would put the
+    3-wide channel axis innermost.
     """
     u_rows = jnp.repeat(u, 2, axis=-2)[..., : y.shape[-2], :]
     v_rows = jnp.repeat(v, 2, axis=-2)[..., : y.shape[-2], :]
@@ -82,9 +80,8 @@ def yuv420_to_rgb_planes(
 def yuv420_to_rgb(y: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Planar YUV420 (limited range) -> (..., H, W, 3) float32 RGB in [0,255].
 
-    Interleaved convenience form (tests / small arrays). Hot paths must use
-    :func:`yuv420_to_rgb_planes` — the channel-minor layout is a TPU
-    pathology (see its docstring).
+    Interleaved convenience form (tests / small arrays). Hot paths use
+    :func:`yuv420_to_rgb_planes`.
     """
     return jnp.stack(yuv420_to_rgb_planes(y, u, v), axis=-1)
 

@@ -1,4 +1,4 @@
-"""2D DCT ops as MXU matmul chains.
+"""2D DCT ops as matmul chains.
 
 The reference computes per-frame ``cv2.dct`` (orthonormal DCT-II) on the
 resized gray frame and reduces it two ways:
@@ -8,9 +8,9 @@ resized gray frame and reduces it two ways:
   (``complexity_metrics.py:543-579``, CPU path — the GPU path wrongly uses
   FFT, SURVEY.md §2.4(2), and is not replicated).
 
-TPU-native formulation: the 2D orthonormal DCT-II of ``X`` is ``D_h @ X @
-D_w^T`` with precomputed basis matrices — two MXU matmuls, batched over frames
-with a single ``einsum``. Two mathematically exact rewrites are exploited:
+Device formulation: the 2D orthonormal DCT-II of ``X`` is ``D_h @ X @
+D_w^T`` with precomputed basis matrices — two f32 matmuls pinned to
+``HIGHEST`` precision, batched over frames with a single ``einsum``. Two mathematically exact rewrites are exploited:
 
 * **Parseval**: the DCT is orthonormal, so ``sum(dct(x)**2) == sum(x**2)``.
   ``dct_energy`` therefore skips the transform entirely (verified against the
@@ -76,7 +76,7 @@ def blockwise_dct8x8(x: jnp.ndarray) -> jnp.ndarray:
 
     H and W must be multiples of 8 (full-res analysis pads frames to 8-aligned
     shapes before calling). The per-block transform is a batched pair of
-    (8,8) contractions — small matmuls that XLA maps onto the MXU in bulk.
+    (8,8) contractions — small matmuls that XLA batches.
     """
     h, w = x.shape[-2], x.shape[-1]
     assert h % 8 == 0 and w % 8 == 0, "blockwise DCT needs 8-aligned dims"

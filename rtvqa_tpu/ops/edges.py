@@ -4,7 +4,7 @@ Reference: ``process_edge_frame`` (``complexity_metrics.py:477-504``) runs
 ``cv2.Canny(gray, 100, 200)`` on the resized gray frame and returns the raw
 count of edge pixels.
 
-TPU-native design: a full Canny pipeline with static shapes —
+On-device design: a full Canny pipeline with static shapes —
 
 1. 3x3 Sobel gradients (replicate border), L1 magnitude (cv2 default
    ``L2gradient=False``);
@@ -42,7 +42,7 @@ def _shift(x: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
 def sobel_gradients(gray: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """3x3 Sobel gx, gy over (..., H, W) with replicate border (cv2 default).
 
-    Stencil evaluated as 8 shifted adds — XLA fuses these into one VPU pass;
+    Stencil evaluated as 8 shifted adds — XLA fuses these into one pass;
     no convolution op needed for a fixed 3x3 kernel.
     """
     g = gray.astype(jnp.float32)
@@ -139,6 +139,6 @@ def canny_edge_count(gray: jnp.ndarray, low: float = 100.0, high: float = 200.0)
 
 def sobel_edge_density(gray: jnp.ndarray, threshold: float = 200.0) -> jnp.ndarray:
     """Cheap edge count: L1 Sobel magnitude > threshold (north-star Sobel
-    substitution; single VPU pass, no NMS/hysteresis)."""
+    substitution; single elementwise pass, no NMS/hysteresis)."""
     gx, gy = sobel_gradients(gray)
     return jnp.sum((jnp.abs(gx) + jnp.abs(gy)) > threshold, axis=(-2, -1)).astype(jnp.float32)

@@ -9,7 +9,7 @@ Reference kernels (host, per frame, cv2.calcHist):
   (``complexity_metrics.py:418-475``; note the deliberate epsilon-vs-masking
   asymmetry between the two reference kernels — replicated here).
 
-TPU formulation: histograms over static 256 bins via a compare-and-reduce —
+Device formulation: histograms over static 256 bins via a compare-and-reduce —
 ``hist[k] = sum(pix == k)`` evaluated as one fused broadcast-compare-reduction
 (XLA keeps it streaming; no scatter needed, shapes stay static). Inputs are
 float pixel values; binning uses round-to-nearest-even to mirror the uint8
@@ -81,11 +81,10 @@ def color_entropy_sampled(
     The 2-tap bilinear row pass reads <= 2*out_h of the H source rows, so
     this gathers those rows of the YUV planes, converts + clips ONLY them
     (chroma row replication becomes the index map r -> r//2), contracts
-    with the compact row weights, then runs the dense column pass. The
-    full-res clipped RGB planes the naive form materializes measured ~40 ms
-    of pure HBM traffic per 128x1080p batch (round 3g profile). Stacking is
-    channel-MAJOR (round 3c: channel-minor layouts are a full-res relayout
-    pathology on TPU).
+    with the compact row weights, then runs the dense column pass — the
+    naive form materializes full-res clipped RGB planes only to read ~1/8
+    of their rows. Stacking is channel-MAJOR, so every step stays
+    elementwise over (..., H, W) planes.
     """
     import jax
 

@@ -3,8 +3,8 @@
 The reference's motion metric is the mean Farneback optical-flow magnitude
 between sampled frame pairs at full resolution
 (``complexity_metrics.py:313-343``). Farneback's iterative polynomial
-expansion is a poor fit for the MXU/VPU; per the BASELINE.md north star the
-TPU framework substitutes **block matching** — a documented behavioral
+expansion is a poor fit for batched device code; per the BASELINE.md north
+star the framework substitutes **block matching** — a documented behavioral
 substitution (SURVEY.md §2 native-component table, hard part 5):
 
 * partition the current frame into ``block x block`` tiles;
@@ -25,10 +25,14 @@ Two search modes (``docs/PARITY.md`` §motion):
   reference Farneback's own pyramid (its defaults are 3 levels, pyr_scale
   0.5, ``complexity_metrics.py:336-340``).
 
-Implementation: one ``lax.scan`` over the (2r+1)^2 candidate displacements.
-Each step is a dynamic-slice of the padded previous frame + an elementwise
-SAD + a blockwise sum (reshape-reduce) — fully static shapes, everything
-batched over frames. Running argmin keeps (best_sad, best_dy, best_dx).
+Implementation: on the GPU, a search kernel
+(``kernels.motion_triton.block_match_field_triton``) that loads each tile
+once and walks every candidate in registers; elsewhere one ``lax.scan`` over
+the (2r+1)^2 candidate displacements. Each scan step is a dynamic-slice of
+the padded previous frame + an elementwise SAD + a blockwise sum
+(reshape-reduce) — fully static shapes, everything batched over frames.
+Running argmin keeps (best_sad, best_dy, best_dx). ``backend.on_gpu`` is the
+one choice between them.
 
 Scale note: ties are broken toward the smaller raster-scan candidate index
 (first minimum wins), so static scenes report exactly 0.0 in both modes.
@@ -39,6 +43,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from rtvqa_tpu.backend import on_gpu
 
 
 def block_match_field(
@@ -107,7 +113,13 @@ def block_match_motion(
     H, W are cropped down to multiples of ``block`` (cv2's Farneback also
     effectively ignores sub-block remainders at the border).
     """
-    best_dy, best_dx = block_match_field(prev_gray, curr_gray, block, radius)
+    if on_gpu():
+        from rtvqa_tpu.kernels.motion_triton import block_match_field_triton
+
+        field = block_match_field_triton
+    else:
+        field = block_match_field
+    best_dy, best_dx = field(prev_gray, curr_gray, block, radius)
     mag = jnp.sqrt(best_dy * best_dy + best_dx * best_dx)
     return jnp.mean(mag, axis=(-2, -1))
 
@@ -115,16 +127,9 @@ def block_match_motion(
 def down2_mean(x: jnp.ndarray) -> jnp.ndarray:
     """2x2 mean pooling (..., H, W) -> (..., H//2, W//2); odd tails cropped.
 
-    ``lax.reduce_window`` form — BITWISE equal to the reshape-reduce form
-    (probed on the v5e, max_abs_diff 0 on 128x1080p) but avoids its
-    lane-splitting reshape relayout: feeding the Pallas search kernel
-    standalone, pooling+search dropped 445 ms -> 60 ms
-    (scripts/probe_down2_chunk.py, round 3b). Inside the fused complexity
-    suite the win is small — interleaved same-session A/B measured 176.9 vs
-    180.4 ms median (scripts/probe_down2_suite_ab.py; XLA already fuses the
-    reshape form well there, packed-output diff 6.7e-6, no argmin tie flips).
-    The HIGHEST-precision pooling-matmul variants were ~15 ms slower AND only
-    equal to ~8e-6 (argmin tie-break hazard) — don't revisit.
+    BITWISE equal to the reshape-reduce form and to the NumPy oracle: the
+    sum of four u8-derived f32 values is exact and 0.25 is a power-of-two
+    scale, so the pyramid's argmin ties cannot flip between forms.
     """
     h = (x.shape[-2] // 2) * 2
     w = (x.shape[-1] // 2) * 2
@@ -135,42 +140,23 @@ def down2_mean(x: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-def _down2_mean_reshape(x: jnp.ndarray) -> jnp.ndarray:
-    """The round-3a reshape-reduce form, kept for in-session A/B probes
-    (29 ms in-situ vs 47 ms for four strided slices at 128x1080p f32)."""
-    h = (x.shape[-2] // 2) * 2
-    w = (x.shape[-1] // 2) * 2
-    xc = x[..., :h, :w].astype(jnp.float32)
-    xr = xc.reshape(*xc.shape[:-2], h // 2, 2, w // 2, 2)
-    return 0.25 * xr.sum(axis=(-3, -1))
-
-
 def block_match_motion_pyramid(
     prev_gray: jnp.ndarray,
     curr_gray: jnp.ndarray,
     block: int = 16,
     radius: int = 8,
-    impl: str = "xla",
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Pyramid (coarse-level) block-matching motion: (..., H, W) -> (...,).
 
     Downsample 2x (mean pool), exhaustive search with block/2 and radius/2,
     displacement magnitudes scaled back by 2 — the same spatial blocks and
-    the same ±radius search span as the full search, at ~1/14 the VPU work
-    (see module docstring). ``impl``: "xla" or "pallas" (the VMEM-staged
-    kernel, TPU only; ``interpret`` for CPU testing).
+    the same ±radius search span as the full search, at ~1/14 the
+    arithmetic (see module docstring).
     """
     bp = max(block // 2, 1)
     rp = max(radius // 2, 1)
     pg = down2_mean(prev_gray)
     cg = down2_mean(curr_gray)
-    if impl == "pallas":
-        from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
-
-        return 2.0 * block_match_motion_pallas(
-            pg, cg, block=bp, radius=rp, interpret=interpret
-        )
     return 2.0 * block_match_motion(pg, cg, block=bp, radius=rp)
 
 
@@ -178,28 +164,18 @@ def block_match_motion_pyramid_series(
     gray_series: jnp.ndarray,
     block: int = 16,
     radius: int = 8,
-    impl: str = "xla",
-    interpret: bool = False,
-    kb: int | None = None,
 ) -> jnp.ndarray:
     """Pyramid motion over consecutive pairs of one frame series:
     (N, H, W) -> (N-1,).
 
     Equivalent to ``block_match_motion_pyramid(g[:-1], g[1:])`` but pools the
-    series ONCE — the 2x2-mean downsample is HBM-bandwidth-bound (~29 ms for
-    128 x 1080p on the v5e even in the reshape-reduce form, see
-    ``down2_mean``), and the pairwise form pays it twice on 99%-overlapping
-    slices (frame-axis slicing commutes with spatial pooling).
+    series ONCE — the pairwise form pays the memory-bound 2x2 pooling twice
+    on 99%-overlapping slices (frame-axis slicing commutes with spatial
+    pooling).
     """
     bp = max(block // 2, 1)
     rp = max(radius // 2, 1)
     gh = down2_mean(gray_series)
-    if impl == "pallas":
-        from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
-
-        return 2.0 * block_match_motion_pallas(
-            gh[:-1], gh[1:], block=bp, radius=rp, interpret=interpret, kb=kb
-        )
     return 2.0 * block_match_motion(gh[:-1], gh[1:], block=bp, radius=rp)
 
 
@@ -218,7 +194,7 @@ def block_match_motion_pyramid2_series(
     candidates, refinement restores half-res (even full-res) displacement
     quantization — the same quantization as the production single-level
     pyramid. The refinement prev-image is built by a 25-way masked select of
-    coarse-shifted slices (TPU-friendly: no gathers, static shapes).
+    coarse-shifted slices (no gathers, static shapes).
 
     **Measured dead end — NOT production** (round 4): on both textured and
     smooth-periodic content, a half-quarter-pixel true shift makes the

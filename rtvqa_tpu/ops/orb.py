@@ -6,13 +6,13 @@ SURVEY.md §2.4(6) — replicated deliberately, since the metric's scale depends
 on it), runs ``cv2.ORB_create().detectAndCompute`` and returns the keypoint
 *count*.
 
-TPU-native design (SURVEY.md §7 hard part 2 — data-dependent keypoint counts
+On-device design (SURVEY.md §7 hard part 2 — data-dependent keypoint counts
 vs XLA static shapes):
 
 * **FAST-9/16 detection** as a dense map: the 16 Bresenham-circle samples are
   16 static shifts; "≥9 contiguous brighter/darker" evaluates as an OR over
-  the 16 rotations of an AND over 9 consecutive flags — pure VPU boolean
-  algebra, no data-dependent shapes anywhere.
+  the 16 rotations of an AND over 9 consecutive flags — pure elementwise
+  boolean algebra, no data-dependent shapes anywhere.
 * **corner score** = the classic FAST score (max threshold at which the pixel
   stays a corner): max over the 16 arcs of the min signed contrast along the
   arc.
@@ -178,7 +178,7 @@ def harris_response(
     structure tensor. Derivatives here are 3x3 Sobel (cv2's HarrisResponses
     uses a plain central difference; the ranking they induce agrees on
     corner-vs-edge ordering — documented approximation, docs/PARITY.md).
-    Evaluated densely as shifted adds: static shapes, one VPU pass.
+    Evaluated densely as shifted adds: static shapes, one elementwise pass.
     """
     from rtvqa_tpu.ops.edges import sobel_gradients
 

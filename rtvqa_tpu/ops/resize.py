@@ -1,12 +1,12 @@
-"""Bilinear resize as separable matmuls (MXU path).
+"""Bilinear resize as separable matmuls.
 
 The reference resizes every frame on the host with ``cv2.resize`` default
 ``INTER_LINEAR`` (``complexity_metrics.py:359, 379, 405, 431, 491, 530``).
 Geometry: half-pixel centers, ``src = (dst + 0.5) * scale - 0.5``, clamped, no
-antialiasing. On TPU, a separable bilinear resize is exactly a pair of dense
+antialiasing. A separable bilinear resize is exactly a pair of dense
 contractions ``R_h @ X @ R_w^T`` with precomputed (static-shape) weight
-matrices — which puts the op on the MXU and lets XLA fuse it with the
-downstream DCT matmuls (the DCT-energy path becomes one matmul chain).
+matrices — real linear maps onto small outputs, pinned to ``HIGHEST``
+precision so an f32 product never runs in TF32.
 
 Note this is *not* ``jax.image.resize`` semantics: that antialiases on
 downscale by default; cv2 does not. The weight matrices are built at trace
@@ -41,7 +41,7 @@ def _bilinear_matrix(dst: int, src: int) -> np.ndarray:
 
 def resize_bilinear(x: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     """Resize (..., H, W) float array to (..., out_h, out_w), cv2 INTER_LINEAR
-    geometry (no antialias). Runs as two MXU contractions."""
+    geometry (no antialias). Runs as two f32 contractions."""
     h, w = x.shape[-2], x.shape[-1]
     dtype = x.dtype if jnp.issubdtype(x.dtype, jnp.floating) else jnp.float32
     x = x.astype(dtype)
@@ -66,8 +66,7 @@ def bilinear_sample_plan(dst: int, src: int) -> tuple[np.ndarray, np.ndarray]:
     m = _bilinear_matrix(dst, src)
     idx = np.unique(np.nonzero(m)[1]).astype(np.int32)
     mat = np.ascontiguousarray(m[:, idx])
-    # lru_cached: freeze so a mutating caller can't corrupt later calls
-    # (ADVICE r3 #2).
+    # lru_cached: freeze so a mutating caller can't corrupt later calls.
     idx.setflags(write=False)
     mat.setflags(write=False)
     return idx, mat
@@ -81,10 +80,8 @@ def resize_bilinear_sampled(x: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarr
     would relayout; the row-reduced operand is small).
 
     When to use: only when the gather removes UPSTREAM work (e.g. the color
-    path converts+clips just the gathered rows). For a plain f32 array
-    already in HBM the dense MXU contraction is FASTER than the XLA gather
-    (probed 2.3 vs 8.3 ms real on 128x1080p, round 3g) — use
-    :func:`resize_bilinear` there."""
+    path converts+clips just the gathered rows); for a plain f32 array
+    already on the device use :func:`resize_bilinear`."""
     h, w = x.shape[-2], x.shape[-1]
     dtype = x.dtype if jnp.issubdtype(x.dtype, jnp.floating) else jnp.float32
     x = x.astype(dtype)

@@ -8,7 +8,7 @@ Reference semantics: ``pd.Series(data).ewm(alpha=a).mean()``
 Both numerator and denominator are first-order linear recurrences
 ``s_t = (1-a) * s_{t-1} + v_t``, which parallelize as an associative scan over
 pairs ``(A, b)`` representing the affine map ``s -> A*s + b`` (composition
-``(A2, b2) ∘ (A1, b1) = (A1*A2, A2*b1 + b2)``). On TPU this runs in
+``(A2, b2) ∘ (A1, b1) = (A1*A2, A2*b1 + b2)``). On the device this runs in
 O(log n) depth via ``jax.lax.associative_scan`` instead of the reference's
 strictly sequential host loop — and it is exactly this formulation that lets
 the smoothing stage shard over the frame axis (SURVEY.md §5 long-context row).

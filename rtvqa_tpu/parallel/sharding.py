@@ -1,7 +1,7 @@
 """Multi-chip execution: device mesh + shard_map'd complexity suite.
 
 The reference's only parallelism is a host process pool over pickled frames
-(``complexity_metrics.py:128-148`` — SURVEY.md §2.3). The TPU-native
+(``complexity_metrics.py:128-148`` — SURVEY.md §2.3). The on-device
 equivalents:
 
 * **intra-chip data parallelism**: every kernel is batched over the frame
@@ -11,8 +11,8 @@ equivalents:
   other — the framework's analog of sequence/context parallelism (SURVEY.md
   §2.3 SP row). Temporal metrics (block-matching motion, temporal DCT, fps
   variation) need exactly one predecessor frame per shard boundary: a single
-  ``ppermute`` halo exchange over ICI sends each shard's last frame to its
-  right neighbor.
+  ``ppermute`` halo exchange sends each shard's last frame to its right
+  neighbor (NVLink between GPUs of one host).
 
 Design: each shard computes *per-global-frame* metric values for its local
 frames (all metrics depend only on frame g and g-1 — the halo). The per-frame
@@ -43,6 +43,8 @@ from rtvqa_tpu.ops.motion import (
     block_match_motion_pyramid,
     block_match_motion_pyramid_series,
 )
+from rtvqa_tpu.vmaf.filters import filter1d_sep
+from rtvqa_tpu.vmaf.motion import FILTER_5
 from rtvqa_tpu.ops.orb import orb_keypoint_count
 from rtvqa_tpu.ops.resize import resize_bilinear
 from rtvqa_tpu.ops.scan import ewm_mean_masked, masked_mean
@@ -61,35 +63,18 @@ def make_mesh(n_clip: int = 1, n_frame: Optional[int] = None, devices=None) -> M
 def _per_frame_values(
     y, u, v, prev_y, prev_u, prev_v, *,
     resize_h, resize_w, block, radius, edge_low, edge_high,
-    motion_search="pyramid", motion_impl="xla",
+    motion_search="pyramid",
 ):
     """All eight per-frame metric values for a local frame block.
 
     ``prev_*`` are the same arrays shifted by one global frame (halo-filled at
     shard boundaries). Shapes (..., Nl, H, W) -> each output (..., Nl).
-
-    ``motion_impl``: "xla" or "pallas" — the VMEM-staged search kernel plus
-    the strip-streamed uint8 gray kernel (TPU; round 5 carries the
-    single-device Pallas path into the sharded body so multi-chip keeps
-    per-chip parity — VERDICT r4 weak #1).
     """
-    if motion_impl == "pallas":
-        from rtvqa_tpu.kernels.gray_pallas import yuv420_to_gray_pallas
-
-        gray = yuv420_to_gray_pallas(y, u, v)
-        prev_gray = yuv420_to_gray_pallas(prev_y, prev_u, prev_v)
-    else:
-        gray = yuv420_to_gray(y, u, v)
-        prev_gray = yuv420_to_gray(prev_y, prev_u, prev_v)
+    gray = yuv420_to_gray(y, u, v)
+    prev_gray = yuv420_to_gray(prev_y, prev_u, prev_v)
 
     if motion_search == "pyramid":
         motion = block_match_motion_pyramid(
-            prev_gray, gray, block=block, radius=radius, impl=motion_impl
-        )
-    elif motion_impl == "pallas":
-        from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
-
-        motion = block_match_motion_pallas(
             prev_gray, gray, block=block, radius=radius
         )
     else:
@@ -102,7 +87,7 @@ def _per_frame_values(
     edge = canny_edge_count(gray_rs, edge_low, edge_high)
     orb = orb_keypoint_count(resize_bilinear(gray, ORB_SIZE, ORB_SIZE))
     # Sampled-rows color path (bitwise-equal to full-res convert + resize;
-    # ops.histogram.color_entropy_sampled, round 3g).
+    # ops.histogram.color_entropy_sampled).
     color = color_entropy_sampled(y, u, v, resize_h, resize_w)
     tdct = temporal_dct_abs_diff(prev_gray_rs, gray_rs)
     return {
@@ -114,35 +99,22 @@ def _per_frame_values(
 def _per_frame_values_series(
     y_ext, u_ext, v_ext, *,
     resize_h, resize_w, block, radius, edge_low, edge_high,
-    motion_search="pyramid", motion_impl="xla",
+    motion_search="pyramid",
 ):
     """Series form of ``_per_frame_values`` for one prev-prepended frame
     series (N+1, H, W): gray conversion, resize, and the pyramid downsample
     run ONCE over N+1 frames instead of twice over N (they are
-    HBM-bandwidth-bound — the pairwise form re-reads 99%-overlapping
-    slices). Returns per-frame values for the N trailing frames.
+    memory-bound — the pairwise form re-reads 99%-overlapping slices).
+    Returns per-frame values for the N trailing frames.
 
     Used by the streaming accumulator; the sharded suite keeps the pairwise
     form (its prev frames arrive as a ppermute halo, not a series slice).
-    ``motion_impl``: "xla" or "pallas" (VMEM-staged search kernel, TPU only).
     """
-    if motion_impl == "pallas":
-        # TPU path: strip-streamed uint8 gray kernel (kernels.gray_pallas).
-        from rtvqa_tpu.kernels.gray_pallas import yuv420_to_gray_pallas
-
-        gray_ext = yuv420_to_gray_pallas(y_ext, u_ext, v_ext)
-    else:
-        gray_ext = yuv420_to_gray(y_ext, u_ext, v_ext)
+    gray_ext = yuv420_to_gray(y_ext, u_ext, v_ext)
 
     if motion_search == "pyramid":
         motion = block_match_motion_pyramid_series(
-            gray_ext, block=block, radius=radius, impl=motion_impl
-        )
-    elif motion_impl == "pallas":
-        from rtvqa_tpu.kernels.motion_pallas import block_match_motion_pallas
-
-        motion = block_match_motion_pallas(
-            gray_ext[:-1], gray_ext[1:], block=block, radius=radius
+            gray_ext, block=block, radius=radius
         )
     else:
         motion = block_match_motion(
@@ -156,7 +128,7 @@ def _per_frame_values_series(
     edge = canny_edge_count(gray_rs, edge_low, edge_high)
     orb = orb_keypoint_count(resize_bilinear(gray_ext[1:], ORB_SIZE, ORB_SIZE))
     # Sampled-rows color path (bitwise-equal to full-res convert + resize;
-    # ops.histogram.color_entropy_sampled, round 3g).
+    # ops.histogram.color_entropy_sampled).
     color = color_entropy_sampled(
         y_ext[1:], u_ext[1:], v_ext[1:], resize_h, resize_w
     )
@@ -204,25 +176,17 @@ def sharded_complexity_suite(
     edge_low: float = 100.0,
     edge_high: float = 200.0,
     motion_search: str = "pyramid",
-    motion_impl: str = "auto",
 ):
     """Build the jitted multi-chip complexity step for a given mesh.
 
     Returns ``fn(y, u, v, timestamps_ms, n_valid) -> dict of (C,) metrics``
     with inputs of shape (C, N, H, W)/(C, N, h, w)/(C, N)/(C,); C must divide
     the mesh's "clip" axis size and N its "frame" axis size.
-
-    ``motion_impl``: "auto" (Pallas gray + search kernels on TPU, XLA on
-    CPU), or an explicit "xla"/"pallas" — round 5, so the multi-chip path
-    keeps the single-device kernels (VERDICT r4 weak #1).
     """
-    if motion_impl == "auto":
-        motion_impl = "pallas" if jax.default_backend() != "cpu" else "xla"
     kernel = functools.partial(
         _per_frame_values,
         resize_h=resize_h, resize_w=resize_w, block=block, radius=radius,
         edge_low=edge_low, edge_high=edge_high, motion_search=motion_search,
-        motion_impl=motion_impl,
     )
 
     def body(y, u, v, ts, n_valid):
@@ -272,44 +236,8 @@ def sharded_complexity_suite(
 # ---------------------------------------------------------------------------
 
 
-def _resolve_quality_impl(impl: str) -> str:
-    """"auto" -> the fused Pallas chunk body on TPU, the plain-XLA
-    composition on CPU (round 5, VERDICT r4 weak #1: the sharded bodies used
-    to run the XLA composition unconditionally — a ~3x per-chip quality
-    regression the moment a second chip appears, since the CLI auto-shards).
-    """
-    if impl in (None, "auto"):
-        return "fused" if jax.default_backend() != "cpu" else "xla"
-    if impl not in ("fused", "xla"):
-        raise ValueError(f"impl must be 'auto', 'fused' or 'xla', got {impl!r}")
-    return impl
-
-
-def _blur_halo_ppermute(ry, prev_blur):
-    """Blurred last local ref-luma -> right neighbor (the VMAF motion halo
-    shared by both fused sharded bodies). Shard 0's halo is ``prev_blur``
-    (the cross-chunk carry / zeros). The boundary-frame SAD therefore
-    compares the neighbor's XLA ``filter1d_sep`` blur against the in-kernel
-    banded-matmul blur — both exact 5-tap f32 filters whose summation order
-    differs by ~1e-6 rel (bench.py --validate budgets 1e-4); all other
-    frames use the in-kernel carry, identical to the single-device program.
-    """
-    from rtvqa_tpu.vmaf.filters import filter1d_sep
-    from rtvqa_tpu.vmaf.motion import FILTER_5
-
-    blur_last = filter1d_sep(ry[-1:].astype(jnp.float32), FILTER_5)
-    n_frame = jax.lax.axis_size("frame")
-    halo = jax.lax.ppermute(
-        blur_last, "frame", [(i, (i + 1) % n_frame) for i in range(n_frame)]
-    )
-    fid = jax.lax.axis_index("frame")
-    return jnp.where(fid == 0, prev_blur[None].astype(jnp.float32), halo)[0]
-
-
-def sharded_quality_step(mesh: Mesh, vif_egl=None, adm_egl=None,
-                         fast3=None, impl: str = "auto",
-                         interpret: bool = False):
-    """Build the jitted multi-chip full-reference step for one clip pair.
+def sharded_quality_step(mesh: Mesh, vif_egl=None, adm_egl=None):
+    """Build the multi-chip full-reference step for one whole clip pair.
 
     ``vif_egl``/``adm_egl``: NEG-mode enhancement-gain limits from the model
     file's ``feature_opts_dicts`` (None = classic VIF/ADM).
@@ -319,76 +247,24 @@ def sharded_quality_step(mesh: Mesh, vif_egl=None, adm_egl=None,
     blurred luma — one ppermute halo, as in the complexity step). Returns
     ``fn(ry, ru, rv, dy, du, dv) -> (K, N) packed float32`` with row order
     ``metrics.full_reference.CHUNK_KEYS``; the global slot-0 motion SAD is
-    raw (callers zero it, matching program A's has_prev masking).
-
-    ``impl``/``fast3``: see :func:`sharded_quality_chunk_step`.
+    taken against a zero frame (callers zero it, matching program A's
+    has_prev masking).
     """
-    from rtvqa_tpu.metrics.full_reference import (
-        A_KEYS, B_KEYS, _chunk_fused_tpu,
-    )
-    from rtvqa_tpu.metrics.quality import psnr_frames, ssim_frames
-    from rtvqa_tpu.vmaf.adm import adm_features
-    from rtvqa_tpu.vmaf.filters import filter1d_sep
-    from rtvqa_tpu.vmaf.motion import FILTER_5
-    from rtvqa_tpu.vmaf.vif import vif_features
+    step = sharded_quality_chunk_step(mesh, vif_egl=vif_egl, adm_egl=adm_egl)
 
-    impl = _resolve_quality_impl(impl)
+    def fn(ry, ru, rv, dy, du, dv):
+        zeros = jnp.zeros(ry.shape[-2:], jnp.float32)
+        packed, _ = step(ry, ru, rv, dy, du, dv, zeros, np.bool_(True))
+        return packed
 
-    def body(ry, ru, rv, dy, du, dv):
-        if impl == "fused":
-            # Per-chip: the SAME fused Pallas chunk body as the single-device
-            # engine (metrics.full_reference._chunk_fused_tpu); halo'd blur
-            # for the shard's first frame, raw SAD at global slot 0 (the
-            # zeros halo), matching the XLA body's convention.
-            zeros = jnp.zeros(ry.shape[-2:], jnp.float32)
-            pb = _blur_halo_ppermute(ry, zeros)
-            packed, _ = _chunk_fused_tpu(
-                ry, ru, rv, dy, du, dv, pb, jnp.bool_(True),
-                vif_egl, adm_egl, fast3, interpret=interpret,
-            )
-            return jax.lax.all_gather(packed, "frame", axis=1, tiled=True)
-        out = {}
-        out.update(psnr_frames(ry, ru, rv, dy, du, dv))
-        out.update(ssim_frames(ry, ru, rv, dy, du, dv))
-        ryf = ry.astype(jnp.float32)
-        dyf = dy.astype(jnp.float32)
-        out.update(vif_features(ryf, dyf, enhn_gain_limit=vif_egl))
-        out.update(adm_features(ryf, dyf, enhn_gain_limit=adm_egl))
-
-        blur = filter1d_sep(ryf, FILTER_5)
-        n_frame = jax.lax.axis_size("frame")
-        halo = jax.lax.ppermute(
-            blur[-1:], "frame", [(i, (i + 1) % n_frame) for i in range(n_frame)]
-        )
-        fid = jax.lax.axis_index("frame")
-        halo = jnp.where(fid == 0, jnp.zeros_like(halo), halo)
-        prev = jnp.concatenate([halo, blur[:-1]], axis=0)
-        out["motion_sad"] = jnp.mean(jnp.abs(blur - prev), axis=(-2, -1))
-
-        packed = jnp.stack(
-            [out[k].astype(jnp.float32) for k in (*A_KEYS, *B_KEYS)]
-        )
-        return jax.lax.all_gather(packed, "frame", axis=1, tiled=True)
-
-    spec = P("frame", None, None)
-    fn = shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(spec,) * 6,
-        out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(fn)
+    return fn
 
 
-def sharded_quality_chunk_step(mesh: Mesh, vif_egl=None, adm_egl=None,
-                               fast3=None, impl: str = "auto",
-                               interpret: bool = False):
-    """Streaming variant of ``sharded_quality_step``: one CHUNK of the clip
-    per call, with the motion-blur carry threaded across chunks so device
-    memory stays bounded by the chunk size regardless of clip length
-    (VERDICT r2 weak #3 — the whole-clip sharded step materializes both full
-    streams in host RAM; this step composes with the lockstep chunk loop of
+def sharded_quality_chunk_step(mesh: Mesh, vif_egl=None, adm_egl=None):
+    """Streaming multi-chip full-reference step: one CHUNK of the clip per
+    call, with the motion-blur carry threaded across chunks so device memory
+    stays bounded by the chunk size regardless of clip length (composes with
+    the lockstep chunk loop of
     ``metrics.full_reference._run_quality_chunks``).
 
     Returns ``fn(ry, ru, rv, dy, du, dv, prev_blur, has_prev) ->
@@ -396,42 +272,13 @@ def sharded_quality_chunk_step(mesh: Mesh, vif_egl=None, adm_egl=None,
     is the blurred last ref-luma of the previous chunk (replicated);
     ``blur_lasts[-1]`` is the next chunk's carry. The chunk (frame axis of
     the inputs) must be a multiple of the mesh's "frame" axis.
-
-    ``impl`` (round 5, VERDICT r4 weak #1 / next #1): "fused" runs the SAME
-    fused Pallas chunk body per shard as the single-device engine
-    (``metrics.full_reference._chunk_fused_tpu`` — VIF0+PSNR+SSIM+motion in
-    one strip kernel, VIF/ADM tails), so multi-chip keeps single-chip perf;
-    "xla" is the plain-XLA composition (the CPU path); "auto" picks by
-    backend. ``fast3``: the VIF filter-precision flag
-    (``metrics.full_reference.resolve_precision``). ``interpret`` runs the
-    Pallas kernels in interpret mode (CPU tests of the fused body).
     """
-    from rtvqa_tpu.metrics.full_reference import (
-        A_KEYS, B_KEYS, _chunk_fused_tpu,
-    )
+    from rtvqa_tpu.metrics.full_reference import A_KEYS, B_KEYS
     from rtvqa_tpu.metrics.quality import psnr_frames, ssim_frames
     from rtvqa_tpu.vmaf.adm import adm_features
-    from rtvqa_tpu.vmaf.filters import filter1d_sep
-    from rtvqa_tpu.vmaf.motion import FILTER_5
     from rtvqa_tpu.vmaf.vif import vif_features
 
-    impl = _resolve_quality_impl(impl)
-
     def body(ry, ru, rv, dy, du, dv, prev_blur, has_prev):
-        if impl == "fused":
-            fid = jax.lax.axis_index("frame")
-            pb = _blur_halo_ppermute(ry, prev_blur)
-            # Shards > 0 always have a predecessor (the halo'd neighbor
-            # frame); shard 0's first frame is the CHUNK's first frame.
-            local_has_prev = jnp.logical_or(fid != 0, has_prev)
-            packed, blur_carry = _chunk_fused_tpu(
-                ry, ru, rv, dy, du, dv, pb, local_has_prev,
-                vif_egl, adm_egl, fast3, interpret=interpret,
-            )
-            return (
-                jax.lax.all_gather(packed, "frame", axis=1, tiled=True),
-                blur_carry[None],
-            )
         out = {}
         out.update(psnr_frames(ry, ru, rv, dy, du, dv))
         out.update(ssim_frames(ry, ru, rv, dy, du, dv))
@@ -446,7 +293,7 @@ def sharded_quality_chunk_step(mesh: Mesh, vif_egl=None, adm_egl=None,
             blur[-1:], "frame", [(i, (i + 1) % n_frame) for i in range(n_frame)]
         )
         fid = jax.lax.axis_index("frame")
-        # Shard 0's halo is the PREVIOUS CHUNK's carry, not zeros.
+        # Shard 0's halo is the PREVIOUS CHUNK's carry.
         halo = jnp.where(fid == 0, prev_blur[None].astype(jnp.float32), halo)
         prev = jnp.concatenate([halo, blur[:-1]], axis=0)
         sad = jnp.mean(jnp.abs(blur - prev), axis=(-2, -1))

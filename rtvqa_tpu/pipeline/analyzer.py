@@ -1,6 +1,6 @@
 """Single-clip orchestrator: encode → analyze → one CSV row.
 
-TPU-native rebuild of ``process_video_and_extract_metrics``
+On-device rebuild of ``process_video_and_extract_metrics``
 (``video_processing.py:180-267``):
 
 1. transcode the input with in-process libx264 at the configured CRF/preset
@@ -17,9 +17,12 @@ TPU-native rebuild of ``process_video_and_extract_metrics``
    (SURVEY.md §2.4(1)): each complexity column holds the metric its header
    names.
 
-Failure semantics mirror the reference: missing quality metrics degrade to
-empty CSV cells (``:156-175``); temp artifacts are cleaned in ``finally``
-(``:263-267``).
+Failure semantics mirror the reference: quality metrics that fail on a bad
+clip (``io.video.BAD_CLIP_ERRORS``) degrade to empty CSV cells
+(``:156-175``); every other error, such as a device program that fails to
+lower, compile or run, propagates, so a broken device is never reported as a
+clip with no scores. Temp artifacts are cleaned in
+``finally`` (``:263-267``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,43 @@ from rtvqa_tpu.obs.profiler import StageTimer
 from rtvqa_tpu.pipeline.csv_sink import update_csv
 
 logger = get_logger("rtvqa_tpu.pipeline")
+
+
+def quality_columns(qual: dict, config: Config) -> dict[str, Any]:
+    """PSNR/SSIM/VMAF CSV cells from a pooled quality dict (empty when the
+    pair had no frames; VMAF empty for the builtin fallback model unless
+    ``allow_builtin_vmaf``)."""
+    if qual["n_frames"] == 0:
+        return {}
+    cols = {"PSNR": qual["psnr"], "SSIM": qual["ssim"]}
+    if not qual["vmaf_is_fallback"] or config.allow_builtin_vmaf:
+        cols["VMAF"] = qual["vmaf"]
+    else:
+        # Artifact-level honesty: a CSV consumer cannot tell a fallback
+        # score from a libvmaf-parity one, so the cell stays empty unless
+        # explicitly opted in.
+        logger.warning(
+            "VMAF cell left empty: no model file. Set vmaf_model_path "
+            "(libvmaf JSON) for parity scores or allow_builtin_vmaf=true for "
+            "the qualitative builtin fallback.",
+        )
+    return cols
+
+
+def complexity_columns(comp) -> dict[str, float]:
+    """The eight complexity CSV cells, each under the header that names its
+    metric (the reference's label<->value mix-up, SURVEY.md §2.4(1), is
+    corrected)."""
+    return {
+        "Advanced Motion Complexity": comp.motion,
+        "DCT Complexity": comp.dct,
+        "Temporal DCT Complexity": comp.temporal_dct,
+        "Histogram Complexity": comp.histogram,
+        "Edge Detection Complexity": comp.edge,
+        "ORB Feature Complexity": comp.orb,
+        "Color Histogram Complexity": comp.color,
+        "Framerate Variation": comp.framerate,
+    }
 
 
 def analyze_video(
@@ -95,7 +135,6 @@ def analyze_video(
                             complexity_chunk=config.batch_size,
                             complexity_on="ref" if config.analyze_original else "dis",
                             vmaf_model_path=config.vmaf_model_path,
-                            quality_precision=config.quality_precision,
                             motion_search=config.motion_search,
                         )
                 else:
@@ -106,27 +145,12 @@ def analyze_video(
                             input_video,
                             encoded_video,
                             vmaf_model_path=config.vmaf_model_path,
-                            quality_precision=config.quality_precision,
                         )
                 timer.add_frames(int(qual.get("n_frames", 0)))
                 if qual["n_frames"] == 0:
                     comp = None  # degenerate pair: recompute via legacy path
-                if qual["n_frames"] > 0:
-                    metrics["PSNR"] = qual["psnr"]
-                    metrics["SSIM"] = qual["ssim"]
-                    if not qual["vmaf_is_fallback"] or config.allow_builtin_vmaf:
-                        metrics["VMAF"] = qual["vmaf"]
-                    else:
-                        # Artifact-level honesty: a CSV consumer cannot tell a
-                        # fallback score from a libvmaf-parity one, so the
-                        # cell stays empty unless explicitly opted in.
-                        logger.warning(
-                            "VMAF cell left empty: no model file. Set "
-                            "vmaf_model_path (libvmaf JSON) for parity scores "
-                            "or allow_builtin_vmaf=true for the qualitative "
-                            "builtin fallback.",
-                        )
-            except Exception as e:  # degrade like the reference's missing logs
+                metrics.update(quality_columns(qual, config))
+            except vio.BAD_CLIP_ERRORS as e:  # degrade like the reference
                 logger.warning("Quality metrics failed: %s", e)
                 comp = None
 
@@ -165,19 +189,7 @@ def analyze_video(
                         motion_search=config.motion_search,
                     )
 
-        # Correct label<->value mapping (reference bug SURVEY.md §2.4(1)).
-        metrics.update(
-            {
-                "Advanced Motion Complexity": comp.motion,
-                "DCT Complexity": comp.dct,
-                "Temporal DCT Complexity": comp.temporal_dct,
-                "Histogram Complexity": comp.histogram,
-                "Edge Detection Complexity": comp.edge,
-                "ORB Feature Complexity": comp.orb,
-                "Color Histogram Complexity": comp.color,
-                "Framerate Variation": comp.framerate,
-            }
-        )
+        metrics.update(complexity_columns(comp))
         logger.info("Metrics extracted: %s", metrics)
         if own_timer:
             timer.log_summary()

@@ -40,12 +40,29 @@ def analyze_clips_sharded(
 
     Returns one ComplexityResult per input clip (order preserved).
     """
+    clips = [vio.decode_sampled(p, frame_interval) for p in video_paths]
+    return complexity_sharded_clips(
+        clips, resize_width, resize_height, smoothing_factor, mesh,
+        n_clip_shards, motion_search,
+    )
+
+
+def complexity_sharded_clips(
+    clips: Sequence,
+    resize_width: int,
+    resize_height: int,
+    smoothing_factor: float = 0.8,
+    mesh=None,
+    n_clip_shards: Optional[int] = None,
+    motion_search: str = "pyramid",
+) -> list[ComplexityResult]:
+    """``analyze_clips_sharded`` over already-sampled clips (anything with
+    ``y``/``u``/``v``/``timestamps_ms`` arrays, e.g. ``io.video.DecodedClip``)."""
     import jax
 
     from rtvqa_tpu.parallel.sharding import make_mesh, sharded_complexity_suite
 
-    clips = [vio.decode_sampled(p, frame_interval) for p in video_paths]
-    shapes = {(c.height, c.width) for c in clips}
+    shapes = {c.y.shape[1:] for c in clips}
     if len(shapes) != 1:
         raise ValueError(f"corpus must share one resolution, got {shapes}")
 

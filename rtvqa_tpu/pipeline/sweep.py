@@ -11,7 +11,7 @@ drivers share the manifest/CSV semantics:
   ALL encoded outputs runs as batched sharded programs (clips data-parallel ×
   frames sequence-parallel, ``pipeline.batch_analyzer``). This replaces the
   reference's entire parallelism story (a host process pool over pickled
-  frames, ``complexity_metrics.py:128-148``) with XLA collectives over ICI.
+  frames, ``complexity_metrics.py:128-148``) with XLA collectives.
 
 Both:
 
@@ -19,7 +19,9 @@ Both:
   skipping done rows — SURVEY.md §5 checkpoint/resume; CSV appends stay
   idempotent);
 * isolate failures per item (one bad clip ≠ failed sweep — SURVEY.md §5
-  failure-detection row).
+  failure-detection row). Only ``io.video.BAD_CLIP_ERRORS`` mark an item
+  failed; any other error, such as a device program that fails to lower,
+  compile or run, is not a bad clip: it propagates and stops the sweep.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import dataclasses
 import json
 import os
 from typing import Iterable, Optional, Sequence
+
+import jax
 
 from rtvqa_tpu.config import Config
 from rtvqa_tpu.obs.logging import get_logger
@@ -71,6 +75,7 @@ def run_sweep(
     manifest_path: Optional[str] = None,
 ) -> dict[str, int]:
     """Analyze every (video, crf) pair; returns {'done': n, 'failed': m, 'skipped': k}."""
+    from rtvqa_tpu.io import video as vio
     from rtvqa_tpu.pipeline.analyzer import process_video_and_extract_metrics
 
     manifest = SweepManifest(manifest_path or config.csv_file + ".manifest.jsonl")
@@ -87,7 +92,7 @@ def run_sweep(
                 process_video_and_extract_metrics(video, cfg)
                 manifest.record(video, int(crf), "done")
                 stats["done"] += 1
-            except Exception as e:  # per-item isolation
+            except vio.BAD_CLIP_ERRORS as e:  # per-item isolation
                 logger.error("Sweep item (%s, crf=%d) failed: %s", video, crf, e)
                 manifest.record(video, int(crf), "failed", error=str(e))
                 stats["failed"] += 1
@@ -112,10 +117,9 @@ def run_sweep_sharded(
     """
     import tempfile
 
-    import jax
-
     from rtvqa_tpu.io import video as vio
     from rtvqa_tpu.parallel.sharding import make_mesh
+    from rtvqa_tpu.pipeline.analyzer import complexity_columns, quality_columns
     from rtvqa_tpu.pipeline.batch_analyzer import analyze_clips_sharded
     from rtvqa_tpu.pipeline.csv_sink import update_csv
     from rtvqa_tpu.pipeline.quality_sharded import analyze_full_reference_sharded
@@ -158,7 +162,7 @@ def run_sweep_sharded(
             try:
                 vio.transcode(video, out, crf=crf, preset=config.preset)
                 encoded[(video, crf)] = out
-            except Exception as e:
+            except vio.BAD_CLIP_ERRORS as e:
                 failed[(video, crf)] = f"encode: {e}"
 
         # --- probe originals once per video --------------------------------
@@ -168,7 +172,7 @@ def run_sweep_sharded(
                 continue
             try:
                 infos[video] = vio.get_video_info(video)
-            except Exception as e:
+            except vio.BAD_CLIP_ERRORS as e:
                 for v2, c2 in items:
                     if v2 == video and (v2, c2) in encoded:
                         failed[(v2, c2)] = f"probe: {e}"
@@ -190,15 +194,9 @@ def run_sweep_sharded(
                     qual = analyze_full_reference_sharded(
                         video, encoded[(video, crf)], mesh=quality_mesh,
                         vmaf_model_path=config.vmaf_model_path,
-                        quality_precision=config.quality_precision,
                     )
-                    if qual["n_frames"] > 0:
-                        row = rows[(video, crf)]
-                        row["PSNR"] = qual["psnr"]
-                        row["SSIM"] = qual["ssim"]
-                        if not qual["vmaf_is_fallback"] or config.allow_builtin_vmaf:
-                            row["VMAF"] = qual["vmaf"]
-                except Exception as e:  # degrade to empty quality cells
+                    rows[(video, crf)].update(quality_columns(qual, config))
+                except vio.BAD_CLIP_ERRORS as e:  # degrade to empty quality cells
                     logger.warning("Quality failed for (%s, crf=%d): %s", video, crf, e)
 
         # --- complexity: one batched sharded program per resolution group --
@@ -210,7 +208,7 @@ def run_sweep_sharded(
             try:
                 info = vio.get_video_info(comp_target[it])
                 groups.setdefault((info.width, info.height), []).append(it)
-            except Exception as e:
+            except vio.BAD_CLIP_ERRORS as e:
                 failed[it] = f"probe encoded: {e}"
                 rows.pop(it, None)
 
@@ -225,7 +223,7 @@ def run_sweep_sharded(
                     mesh=comp_mesh,
                     motion_search=config.motion_search,
                 )
-            except Exception as e:
+            except vio.BAD_CLIP_ERRORS as e:
                 # Batched call failed: isolate per item sequentially.
                 logger.warning("Batched complexity failed for %s: %s", res, e)
                 results = []
@@ -245,23 +243,14 @@ def run_sweep_sharded(
                             smoothing_factor=config.smoothing_alpha,
                             motion_search=config.motion_search,
                         ))
-                    except Exception as e2:
+                    except vio.BAD_CLIP_ERRORS as e2:
                         failed[it] = f"complexity: {e2}"
                         rows.pop(it, None)
                         results.append(None)
             for it, comp in zip(group, results):
                 if comp is None or it not in rows:
                     continue
-                rows[it].update({
-                    "Advanced Motion Complexity": comp.motion,
-                    "DCT Complexity": comp.dct,
-                    "Temporal DCT Complexity": comp.temporal_dct,
-                    "Histogram Complexity": comp.histogram,
-                    "Edge Detection Complexity": comp.edge,
-                    "ORB Feature Complexity": comp.orb,
-                    "Color Histogram Complexity": comp.color,
-                    "Framerate Variation": comp.framerate,
-                })
+                rows[it].update(complexity_columns(comp))
 
         # --- emit rows + manifest in the sequential driver's order ---------
         for it in items:

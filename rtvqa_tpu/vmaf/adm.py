@@ -80,8 +80,6 @@ def _dwt_1level(x: jnp.ndarray):
     hi_rows = hi_rows[..., ::2, :]
 
     def cols(y, taps):
-        # Lane decimation via selection matmul (strided lane slices force a
-        # TPU vector relayout).
         return even_lanes(filter1d_sep_axis(y, taps, axis=-1))
 
     a = cols(lo_rows, DB2_LO)
@@ -165,9 +163,7 @@ def adm_one_scale(o, t, scale: int, enhn_gain_limit=None):
 
     Returns (a_ref, a_dis, num_contrib, den_contrib): the next level's inputs
     and this scale's contributions (already including the three per-band
-    ``cbrt(area/32)`` offsets). The XLA peer of the per-scale Pallas kernel
-    (``kernels.adm_pallas.adm_scale_pallas``) — equivalence is tested per
-    level.
+    ``cbrt(area/32)`` offsets).
     """
     o, oh, ov, od = _dwt_1level(o)
     t, th, tv, td = _dwt_1level(t)

@@ -3,9 +3,8 @@
 All VMAF features are built on 1D separable convolutions over the luma plane
 (Gaussian windows for VIF, a 5-tap blur for motion, db2 wavelet taps for
 ADM). The JAX path evaluates them as k statically-shifted scaled adds over
-reflect-padded inputs, which XLA fuses into a few VPU passes (a
-single-channel ``lax.conv`` lowers degenerately on TPU; a dense band-matrix
-matmul burns ~64x the FLOPs at 1080p). Border mode is mirrored reflection
+reflect-padded inputs, which XLA fuses into elementwise passes (a dense
+band-matrix matmul would burn ~64x the FLOPs at 1080p). Border mode is mirrored reflection
 without edge repetition (scipy 'mirror', matching libvmaf's vif_filter1d),
 implemented via ``jnp.pad(mode='reflect')``.
 
@@ -17,7 +16,6 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,9 +31,7 @@ def _conv_1d(x: jnp.ndarray, taps: np.ndarray, axis: int, mode: str) -> jnp.ndar
     """1D correlation along trailing axis -1 or -2 with border handling.
 
     Evaluated as k statically-shifted scaled adds over the padded array —
-    XLA fuses the chain into a few VPU passes. (A single-channel
-    ``lax.conv`` is degenerate on TPU and lowers poorly; a dense band-matrix
-    matmul burns ~64x the FLOPs at 1080p.)
+    XLA fuses the chain into elementwise passes.
     """
     assert axis in (-1, -2)
     taps_a = np.asarray(taps, dtype=np.float32)
@@ -73,32 +69,27 @@ def filter1d_sep_axis(
     return _conv_1d(x, taps, axis, mode)
 
 
-@functools.lru_cache(maxsize=64)
-def _even_sel_matrix(n: int) -> np.ndarray:
-    """(n, ceil(n/2)) 0/1 matrix selecting even indices."""
-    m = np.zeros((n, (n + 1) // 2), np.float32)
-    for c in range(m.shape[1]):
-        m[2 * c, c] = 1.0
-    return m
-
-
 def even_lanes(x: jnp.ndarray) -> jnp.ndarray:
-    """Keep even indices of the LAST axis via a 0/1 selection matmul.
+    """Keep the even indices of the LAST axis (libvmaf-style decimation).
 
-    A lane-dim strided slice forces a vector relayout on TPU; the MXU matmul
-    (HIGHEST precision — exact for selection) is far cheaper.
+    An odd width is zero-padded by one, split into (width/2, 2) pairs, and
+    the first of each pair is kept: the elements of ``x[..., ::2]``. With
+    the strided slice itself, XLA:CPU sums VIF scale 2's statistics in an
+    order that depends on the batch size (7e-7 apart between one frame and
+    eight), which breaks the bit-equality of the sharded and single-device
+    chunk programs; this form keeps them equal.
     """
-    sel = jnp.asarray(_even_sel_matrix(x.shape[-1]))
-    return jnp.einsum(
-        "...hw,wc->...hc", x.astype(jnp.float32), sel,
-        preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST,
-    )
+    w = x.shape[-1]
+    x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, w % 2)])
+    return x.reshape(*x.shape[:-1], (w + 1) // 2, 2)[..., 0]
 
 
 def decimate2(x: jnp.ndarray) -> jnp.ndarray:
     """Subsample trailing (H, W) by 2 (keep even indices, libvmaf style).
 
-    Rows decimate by sublane slicing (cheap); lanes by selection matmul.
+    Rows by a strided slice, columns by ``even_lanes``: decimating both
+    axes in one reshape makes XLA:CPU's VIF scale 1 differ between uint8
+    and f32 inputs (2e-7).
     """
     return even_lanes(x[..., ::2, :])
 
@@ -139,8 +130,7 @@ def filter1d_sep_np(x: np.ndarray, taps: np.ndarray, mode: str = "reflect") -> n
     t = tuple(float(v) for v in np.asarray(taps, dtype=np.float64))
     mh = _conv_matrix(h, t, mode)
     mw = _conv_matrix(w, t, mode)
-    y = np.einsum("oh,...hw->...ow", mh, x.astype(np.float64))
-    return np.einsum("pw,...hw->...hp", mw, y)
+    return (mh @ x.astype(np.float64)) @ mw.T
 
 
 def filter1d_sep_axis_np(x: np.ndarray, taps: np.ndarray, axis: int, mode: str = "reflect") -> np.ndarray:
@@ -148,5 +138,5 @@ def filter1d_sep_axis_np(x: np.ndarray, taps: np.ndarray, axis: int, mode: str =
     length = x.shape[axis]
     t = tuple(float(v) for v in np.asarray(taps, dtype=np.float64))
     m = _conv_matrix(length, t, mode)
-    eq = "oh,...hw->...ow" if axis == -2 else "pw,...hw->...hp"
-    return np.einsum(eq, m, x.astype(np.float64))
+    x = x.astype(np.float64)
+    return m @ x if axis == -2 else x @ m.T

@@ -17,7 +17,7 @@ Prediction follows libsvm/libvmaf semantics per frame:
 
 The SVR evaluation is a JAX kernel: the support-vector matrix becomes a
 (n_sv, n_feat) constant and the per-frame evaluation is one distance matmul —
-batched over all frames at once on the MXU.
+batched over all frames at once, pinned to ``HIGHEST`` precision.
 
 If no model file is available (this build environment has none — zero
 egress, SURVEY.md §6), ``builtin_model()`` provides a transparent linear
@@ -108,7 +108,7 @@ class VmafModel:
         if self.kind == "rbf_nusvr":
             sv = jnp.asarray(self.sv, jnp.float32)            # (S, F)
             coef = jnp.asarray(self.sv_coef, jnp.float32)     # (S,)
-            # ||x - s||^2 = |x|^2 + |s|^2 - 2 x.s — one MXU matmul.
+            # ||x - s||^2 = |x|^2 + |s|^2 - 2 x.s — one matmul.
             x2 = jnp.sum(xn * xn, axis=-1, keepdims=True)     # (N, 1)
             s2 = jnp.sum(sv * sv, axis=-1)[None, :]           # (1, S)
             cross = jnp.einsum(
@@ -118,10 +118,10 @@ class VmafModel:
             )
             dist_sq = jnp.maximum(x2 + s2 - 2.0 * cross, 0.0)
             k = jnp.exp(-self.gamma * dist_sq)                # (N, S)
-            y = k @ coef - self.rho
+            y = jnp.dot(k, coef, precision=jax.lax.Precision.HIGHEST) - self.rho
         elif self.kind == "linear":
             w = jnp.asarray(self.weights, jnp.float32)
-            y = xn @ w + self.bias
+            y = jnp.dot(xn, w, precision=jax.lax.Precision.HIGHEST) + self.bias
         else:
             raise ValueError(self.kind)
 

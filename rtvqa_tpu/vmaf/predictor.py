@@ -44,8 +44,7 @@ def extract_features(
 ) -> dict[str, np.ndarray]:
     """Per-frame VMAF features for two decoded clips (luma planes).
 
-    The combined VIF+ADM program's compile-time HBM budget allows ~4
-    simultaneous 1080p frames; the default chunk scales with resolution.
+    The default chunk (4 frames at 1080p) scales with resolution.
     """
     n = min(ref_clip.y.shape[0], dis_clip.y.shape[0])
     h, w = ref_clip.y.shape[1:]

@@ -99,8 +99,11 @@ def vif_features(
 # --- NumPy oracle ----------------------------------------------------------
 
 
-def vif_features_np(ref_y: np.ndarray, dis_y: np.ndarray) -> dict[str, float]:
-    """Loop-free but independent float64 implementation for golden tests."""
+def vif_features_np(
+    ref_y: np.ndarray, dis_y: np.ndarray, enhn_gain_limit: float | None = None
+) -> dict[str, float]:
+    """Loop-free but independent float64 implementation for golden tests
+    (``enhn_gain_limit``: libvmaf's NEG-mode gain cap, as in vif_features)."""
     from rtvqa_tpu.vmaf.filters import filter1d_sep_np
 
     ref = ref_y.astype(np.float64)
@@ -131,6 +134,8 @@ def vif_features_np(ref_y: np.ndarray, dis_y: np.ndarray) -> dict[str, float]:
         sv[mg] = s2[mg]
         g[mg] = 0
         sv = np.maximum(sv, _EPS)
+        if enhn_gain_limit is not None:
+            g = np.minimum(g, enhn_gain_limit)
         num = np.log2(1 + g * g * s1 / (sv + _SIGMA_NSQ)).sum()
         den = np.log2(1 + s1 / _SIGMA_NSQ).sum()
         out[f"vif_scale{scale}"] = float(num / max(den, _EPS))

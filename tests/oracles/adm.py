@@ -52,7 +52,9 @@ def csf_rfactors(scale: int):
     return 1.0 / q(0), 1.0 / q(0), 1.0 / q(1)
 
 
-def adm2(ref: np.ndarray, dis: np.ndarray) -> float:
+def adm2(ref: np.ndarray, dis: np.ndarray, enhn_gain_limit=None) -> float:
+    """adm2 of one frame pair; ``enhn_gain_limit`` caps the restoration gain
+    even where the 1-degree angle test passes (libvmaf NEG mode)."""
     o = ref.astype(np.float64)
     t = dis.astype(np.float64)
     num_total = den_total = 0.0
@@ -65,7 +67,10 @@ def adm2(ref: np.ndarray, dis: np.ndarray) -> float:
         def restore(oo, tt):
             eps = np.where(oo >= 0, 1e-30, -1e-30)
             kk = np.clip(tt / (oo + eps), 0.0, 1.0)
-            return np.where(angle, tt, kk * oo)
+            if enhn_gain_limit is None:
+                return np.where(angle, tt, kk * oo)
+            k_neg = np.clip(tt / (oo + eps), 0.0, enhn_gain_limit)
+            return np.where(angle, k_neg * oo, kk * oo)
 
         rh, rv_, rd = restore(oh, th), restore(ov, tv), restore(od, td)
         ah, av, ad = th - rh, tv - rv_, td - rd

@@ -35,7 +35,7 @@ def test_yuv_rgb_roundtrip_noise(rng):
 
 
 def test_rgb_planes_match_interleaved(rng):
-    # The hot-path planar form (channel-MAJOR, TPU-native layout) must be
+    # The hot-path planar form (channel-MAJOR layout) must be
     # bitwise-identical per channel to the interleaved convenience form.
     rgb = rng.integers(0, 256, (2, 24, 32, 3), np.uint8)
     y, u, v = rgb_to_yuv420_np(rgb)

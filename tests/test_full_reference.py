@@ -136,7 +136,7 @@ def test_combined_engine_complexity_on_ref(pair):
 @pytest.mark.parametrize("on", ["dis", "ref"])
 def test_combined_merged_matches_tap(pair, on):
     """The merged chunk program (quality + complexity values in ONE dispatch,
-    the frame_interval=1 TPU fast path) must reproduce the tap path: same
+    the frame_interval=1 GPU fast path) must reproduce the tap path: same
     quality dict, same complexity 8-tuple. chunk=4 exercises the ragged tail
     (11 frames) and the cross-chunk tail carry."""
     from rtvqa_tpu.metrics.full_reference import analyze_combined
@@ -183,7 +183,7 @@ def test_streaming_motion_chunk_boundary(pair):
 
 
 def test_program_chunk_matches_split(rng):
-    """The fused per-chunk program (TPU dispatch path) must equal the split
+    """The one-program chunk (GPU dispatch path) must equal the split
     A/B programs (CPU dispatch path) row for row."""
     from rtvqa_tpu.metrics.full_reference import (
         CHUNK_KEYS, _program_a, _program_b, _program_chunk,

@@ -174,73 +174,6 @@ def test_chunk_step_bit_equal_at_awkward_shapes(rng):
         np.testing.assert_array_equal(blur_shard, blur_ref)
 
 
-def test_chunk_step_fused_impl_matches_single_device_fused(rng):
-    """VERDICT r4 next #1: the sharded chunk step with ``impl="fused"`` must
-    run the SAME fused Pallas programs per shard as the single-device engine
-    — checked in interpret mode on the 8-device CPU mesh at awkward shapes
-    (13 frames / 8 shards / chunk 8: ragged second chunk; 56x70: odd
-    decimation chains). Tolerances are ULP-scale, not bit-equality: the
-    interpret-mode kernel body is XLA code inlined into DIFFERENT enclosing
-    programs (shard_map+all_gather vs the plain chunk program), and XLA's
-    reduction fusion is only reproducible within one program shape (measured
-    1-ULP mse differences). motion_sad additionally compares the neighbor's
-    XLA halo blur against the in-kernel banded-matmul blur at
-    shard-boundary frames (~1e-6 rel). The blur CARRY is bit-equal — the
-    next chunk sees identical state."""
-    if jax.device_count() < 8:
-        pytest.skip("needs 8 virtual devices")
-    from rtvqa_tpu.metrics.full_reference import CHUNK_KEYS, _chunk_fused_tpu
-    from rtvqa_tpu.parallel.sharding import sharded_quality_chunk_step
-
-    n, h, w = 13, 56, 70
-    hc, wc = h // 2, w // 2
-    chunk = 8
-    ry = rng.integers(0, 256, (n, h, w), np.uint8)
-    ru = rng.integers(0, 256, (n, hc, wc), np.uint8)
-    rv = rng.integers(0, 256, (n, hc, wc), np.uint8)
-    dy = np.clip(ry.astype(np.int16) + rng.integers(-9, 10, ry.shape), 0, 255).astype(np.uint8)
-    du = np.clip(ru.astype(np.int16) + rng.integers(-9, 10, ru.shape), 0, 255).astype(np.uint8)
-    dv = rv.copy()
-
-    mesh = make_mesh(n_clip=1, n_frame=8)
-    step = sharded_quality_chunk_step(mesh, impl="fused", interpret=True)
-
-    def pad(a, lo, hi):
-        c = a[lo:hi]
-        return np.concatenate(
-            [c, np.repeat(c[-1:], chunk - (hi - lo), 0)], 0
-        ) if hi - lo < chunk else c
-
-    blur_ref = np.zeros((h, w), np.float32)
-    blur_shard = np.zeros((h, w), np.float32)
-    for ci, (lo, hi) in enumerate([(0, 8), (8, 13)]):
-        args = tuple(pad(a, lo, hi) for a in (ry, ru, rv, dy, du, dv))
-        has_prev = np.bool_(ci > 0)
-        exp_packed, exp_blur = _chunk_fused_tpu(
-            *args, blur_ref, has_prev, None, None, False, interpret=True
-        )
-        got_packed, blur_lasts = step(*args, blur_shard, has_prev)
-        exp_np, got_np = np.asarray(exp_packed), np.asarray(got_packed)
-
-        for row, key in enumerate(CHUNK_KEYS):
-            if key == "motion_sad":
-                # XLA halo blur vs in-kernel banded-matmul blur; a padded
-                # duplicate frame's SAD is exactly 0 single-device but
-                # ~1e-6 against the halo blur — hence the absolute floor.
-                rtol, atol = 1e-5, 1e-5
-            elif key in ("vif_scale3", "adm2"):
-                rtol, atol = 2e-4, 1e-7  # deepest-scale border reductions
-            else:
-                rtol, atol = 5e-6, 1e-7  # ULP-scale reduction fusion
-            np.testing.assert_allclose(
-                got_np[row], exp_np[row], rtol=rtol, atol=atol,
-                err_msg=f"chunk {ci}: {key}",
-            )
-        blur_ref = np.asarray(exp_blur)
-        blur_shard = np.asarray(blur_lasts)[-1]
-        np.testing.assert_allclose(blur_shard, blur_ref, rtol=1e-6, atol=1e-6)
-
-
 @pytest.mark.parametrize("n_devices", [3, 5])
 def test_sharded_full_reference_odd_mesh_sizes(tmp_path, n_devices):
     """Mesh sizes that don't divide the frame count either way."""

@@ -106,6 +106,29 @@ def test_sharded_sweep_resume_and_isolation(corpus, tmp_path):
     assert len(read_rows(cfg.csv_file)) == 2
 
 
+@pytest.mark.parametrize("driver", [run_sweep, run_sweep_sharded],
+                         ids=["sequential", "sharded"])
+def test_device_program_failure_stops_the_sweep(corpus, tmp_path, monkeypatch,
+                                                driver):
+    """A device program that fails to build is not a bad clip: the motion
+    search raising what a Pallas lowering rule raises (an AssertionError)
+    propagates out of the sweep instead of turning items into 'failed'."""
+    import jax
+
+    from rtvqa_tpu.ops import motion
+
+    def fails_to_lower(*args, **kwargs):
+        raise AssertionError("lowering failed")
+
+    monkeypatch.setattr(motion, "block_match_field", fails_to_lower)
+    jax.clear_caches()  # no program traced earlier may skip the search
+    manifest = tmp_path / "broken.jsonl"
+    with pytest.raises(AssertionError, match="lowering failed"):
+        driver(corpus["clips"][:1], _base_config(tmp_path, "broken"),
+               crf_ladder=[35], manifest_path=str(manifest))
+    assert not manifest.exists() or "failed" not in manifest.read_text()
+
+
 def test_data_parallel_devices_bounds_mesh(corpus, tmp_path, monkeypatch):
     """The config key actually selects the mesh size (SURVEY §2.4(8) redux)."""
     import rtvqa_tpu.parallel.sharding as sharding
